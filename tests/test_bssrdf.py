@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from gnxraytracer_tpu.models import bssrdf
-from gnxraytracer_tpu.ops.sampling import uniform_sample_hemisphere
+from gnxraytracer.models import bssrdf
+from gnxraytracer.ops.sampling import uniform_sample_hemisphere
 
 
 class TestFresnelMoments:
@@ -205,8 +205,8 @@ class TestSampleSpProbe:
     def test_probe_finds_wall(self):
         """Probe around a point on the Cornell floor: the chain walk must
         re-find the floor (same material) within the sampled disc."""
-        from gnxraytracer_tpu.models.integrators import path
-        from gnxraytracer_tpu.scene import presets
+        from gnxraytracer.models.integrators import path
+        from gnxraytracer.scene import presets
         import numpy as np
 
         scene, camera = presets.cornell_box(width=16, height=16)
@@ -216,7 +216,7 @@ class TestSampleSpProbe:
         n = 32
         po_p = jnp.broadcast_to(jnp.asarray([0.0, 0.0, 0.0]), (n, 3))
         # identify floor material via a downward ray
-        from gnxraytracer_tpu.ops import trace
+        from gnxraytracer.ops import trace
 
         h = trace.scene_intersect(
             scene, cfg, po_p[:1], jnp.asarray([[0.0, -1.0, 0.0]]),

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.ops import bvh as bvh_mod
-from gnxraytracer_tpu.ops import intersect
+from gnxraytracer.ops import bvh as bvh_mod
+from gnxraytracer.ops import intersect
 
 
 def random_scene(n_tris, seed=0, spread=5.0):
@@ -74,7 +74,7 @@ class TestBVHTraversal:
         o, d = random_rays(256, 10)
         vj, ij = jnp.asarray(verts), jnp.asarray(idx)
         t_max = jnp.full(256, 1e30, jnp.float32)
-        from gnxraytracer_tpu.ops.intersect import (
+        from gnxraytracer.ops.intersect import (
             closest_triangle_hit, closest_triangle_hit_blocked,
             ray_triangles_watertight)
 
@@ -104,7 +104,7 @@ class TestBVHTraversal:
     @pytest.mark.slow
     def test_lbvh_matches_bruteforce(self):
         """On-device LBVH (morton + Karras linking) traversal parity."""
-        from gnxraytracer_tpu.ops import lbvh
+        from gnxraytracer.ops import lbvh
 
         verts, idx = random_scene(800, 11)
         o, d = random_rays(300, 12)
@@ -343,8 +343,8 @@ def test_scene_builder_lbvh_mode():
     walk."""
     import numpy as np
 
-    from gnxraytracer_tpu.ops import bvh as bvh_mod
-    from gnxraytracer_tpu.scene.scene import SceneBuilder
+    from gnxraytracer.ops import bvh as bvh_mod
+    from gnxraytracer.scene.scene import SceneBuilder
 
     rng = np.random.default_rng(3)
     v = (rng.random((300, 3), np.float32) * 4 - 2).astype(np.float32)

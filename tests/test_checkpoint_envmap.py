@@ -18,7 +18,7 @@ def run_cli(*args):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     r = subprocess.run(
-        [sys.executable, "-m", "gnxraytracer_tpu.cli", "render", "--cpu",
+        [sys.executable, "-m", "gnxraytracer.cli", "render", "--cpu",
          *args],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=500)
     assert r.returncode == 0, r.stderr[-2000:]
@@ -51,7 +51,7 @@ class TestCheckpointResume:
 
 class TestEnvmapImportance:
     def _scene(self):
-        from gnxraytracer_tpu.scene.scene import SceneBuilder
+        from gnxraytracer.scene.scene import SceneBuilder
 
         rs = np.random.RandomState(7)
         # low-res env with strong hot spots (importance must follow them)
@@ -67,8 +67,8 @@ class TestEnvmapImportance:
         """Histogram of sampled (u,v) cells vs the luminance*sin(theta)
         target pmf (the Distribution2D the reference builds,
         InfiniteAreaLight.cpp:62-82)."""
-        from gnxraytracer_tpu.models import lights as lights_mod
-        from gnxraytracer_tpu.models.integrators import path as path_mod
+        from gnxraytracer.models import lights as lights_mod
+        from gnxraytracer.models.integrators import path as path_mod
 
         scene, img = self._scene()
         cfg = path_mod.make_config(scene, 8, 8, spp=1)
@@ -106,8 +106,8 @@ class TestEnvmapImportance:
     def test_pdf_li_consistent_with_histogram(self):
         """pdf_li at sampled directions integrates to ~1 over the sphere
         (MC check: E[1/pdf] over importance samples = 4pi-free total)."""
-        from gnxraytracer_tpu.models import lights as lights_mod
-        from gnxraytracer_tpu.models.integrators import path as path_mod
+        from gnxraytracer.models import lights as lights_mod
+        from gnxraytracer.models.integrators import path as path_mod
 
         scene, img = self._scene()
         cfg = path_mod.make_config(scene, 8, 8, spp=1)

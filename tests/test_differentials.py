@@ -5,9 +5,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from gnxraytracer_tpu.ops import texture as tex
-from gnxraytracer_tpu.ops import trace
-from gnxraytracer_tpu.scene import camera as cam
+from gnxraytracer.ops import texture as tex
+from gnxraytracer.ops import trace
+from gnxraytracer.scene import camera as cam
 
 
 def _camera(w=64, h=64):
@@ -76,8 +76,8 @@ class TestRayDifferentials:
 
     def test_triangle_dpduv_unit_chart(self):
         """Default UV chart (0,0),(1,0),(1,1): dpdu/dpdv span the edges."""
-        from gnxraytracer_tpu.models.integrators import path
-        from gnxraytracer_tpu.scene import presets
+        from gnxraytracer.models.integrators import path
+        from gnxraytracer.scene import presets
 
         scene, _ = presets.cornell_box(width=8, height=8)
         cfg = path.make_config(scene, 8, 8, spp=1)
@@ -167,7 +167,7 @@ class TestWhittedSpecularDifferentials:
         return o, d, ns, rxo, rxd
 
     def test_reflect_matches_geometric(self):
-        from gnxraytracer_tpu.models.integrators import whitted
+        from gnxraytracer.models.integrators import whitted
 
         o, d, ns, rxo, rxd = self._mirror_setup()
         t = -o[:, 2] / d[:, 2]
@@ -200,7 +200,7 @@ class TestWhittedSpecularDifferentials:
         """Flat dielectric interface: the propagated transmit differential
         must match the true refracted aux direction to first order in the
         offset (the update is d(refract)/dx evaluated at the main ray)."""
-        from gnxraytracer_tpu.models.integrators import whitted
+        from gnxraytracer.models.integrators import whitted
 
         o, d, ns, rxo, _ = self._mirror_setup()
         eps = 1e-4
@@ -252,9 +252,9 @@ class TestWhittedSpecularDifferentials:
         bounce), while agreeing in overall mean."""
         import jax
 
-        from gnxraytracer_tpu.models.integrators import path, whitted
-        from gnxraytracer_tpu.ops import samplers
-        from gnxraytracer_tpu.scene.presets import (SceneBuilder, _box_mesh,
+        from gnxraytracer.models.integrators import path, whitted
+        from gnxraytracer.ops import samplers
+        from gnxraytracer.scene.presets import (SceneBuilder, _box_mesh,
                                                     make_perspective_camera)
 
         w = h = 48

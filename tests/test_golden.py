@@ -7,9 +7,9 @@ import os
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.models.integrators import path, volpath, whitted
-from gnxraytracer_tpu.ops import samplers
-from gnxraytracer_tpu.scene import presets
+from gnxraytracer.models.integrators import path, volpath, whitted
+from gnxraytracer.ops import samplers
+from gnxraytracer.scene import presets
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -55,7 +55,7 @@ class TestGolden:
 
     def test_direct_cornell_mis(self):
         """BASELINE config 2: DirectLighting on the Cornell box (MIS)."""
-        from gnxraytracer_tpu.models.integrators import direct
+        from gnxraytracer.models.integrators import direct
 
         scene, cam = presets.cornell_box(width=32, height=32)
         cfg = path.make_config(scene, 32, 32, spp=8, max_depth=3, spp_chunk=8)

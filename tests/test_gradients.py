@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.models.integrators import path
-from gnxraytracer_tpu.ops import samplers
-from gnxraytracer_tpu.parallel import sharding
-from gnxraytracer_tpu.scene import presets
+from gnxraytracer.models.integrators import path
+from gnxraytracer.ops import samplers
+from gnxraytracer.parallel import sharding
+from gnxraytracer.scene import presets
 
 
 @pytest.fixture(scope="module")
@@ -135,8 +135,8 @@ class TestGradientSurface:
 
     @pytest.mark.slow
     def test_grad_wrt_roughness(self):
-        from gnxraytracer_tpu.scene.scene import SceneBuilder
-        from gnxraytracer_tpu.scene.camera import make_perspective_camera
+        from gnxraytracer.scene.scene import SceneBuilder
+        from gnxraytracer.scene.camera import make_perspective_camera
 
         b = SceneBuilder()
         m = b.add_plastic((0.4, 0.4, 0.4), roughness=0.3)
@@ -178,8 +178,8 @@ class TestGradientSurface:
 
     @pytest.mark.slow
     def test_grad_wrt_disney_params(self):
-        from gnxraytracer_tpu.scene.scene import SceneBuilder
-        from gnxraytracer_tpu.scene.camera import make_perspective_camera
+        from gnxraytracer.scene.scene import SceneBuilder
+        from gnxraytracer.scene.camera import make_perspective_camera
 
         b = SceneBuilder()
         m = b.add_disney((0.6, 0.3, 0.2), rough_u=0.4, metallic=0.4,
@@ -210,10 +210,10 @@ class TestGradientSurface:
 
     @pytest.mark.slow
     def test_grad_wrt_medium_sigma(self):
-        from gnxraytracer_tpu.models.integrators import volpath
-        from gnxraytracer_tpu.scene.scene import SceneBuilder
-        from gnxraytracer_tpu.scene.camera import make_perspective_camera
-        from gnxraytracer_tpu.scene.presets import _box_mesh
+        from gnxraytracer.models.integrators import volpath
+        from gnxraytracer.scene.scene import SceneBuilder
+        from gnxraytracer.scene.camera import make_perspective_camera
+        from gnxraytracer.scene.presets import _box_mesh
 
         b = SceneBuilder()
         med = b.add_homogeneous_medium((0.3, 0.3, 0.3), (0.4, 0.4, 0.4))
@@ -241,8 +241,8 @@ class TestGradientSurface:
 
     @pytest.mark.slow
     def test_grad_wrt_texture_texels(self):
-        from gnxraytracer_tpu.scene.scene import SceneBuilder
-        from gnxraytracer_tpu.scene.camera import make_perspective_camera
+        from gnxraytracer.scene.scene import SceneBuilder
+        from gnxraytracer.scene.camera import make_perspective_camera
 
         b = SceneBuilder()
         rs = np.random.RandomState(0)

@@ -7,8 +7,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from gnxraytracer_tpu.ops import instancing as inst
-from gnxraytracer_tpu.ops import intersect
+from gnxraytracer.ops import instancing as inst
+from gnxraytracer.ops import intersect
 
 
 def _unit_quad():
@@ -146,9 +146,9 @@ class TestInstancedRender:
     integrator (image-level lift of the op tests above)."""
 
     def _render(self, flatten, w=48, h=48, spp=8):
-        from gnxraytracer_tpu.models.integrators import path
-        from gnxraytracer_tpu.ops import samplers
-        from gnxraytracer_tpu.scene import presets
+        from gnxraytracer.models.integrators import path
+        from gnxraytracer.ops import samplers
+        from gnxraytracer.scene import presets
 
         scene, cam = presets.cornell_instanced(w, h, flatten=flatten)
         cfg = path.make_config(scene, w, h, spp=spp, max_depth=4,
@@ -172,9 +172,9 @@ class TestInstancedRender:
     def test_instanced_visible(self):
         img = self._render(flatten=False)
         base_scene_img = None
-        from gnxraytracer_tpu.models.integrators import path
-        from gnxraytracer_tpu.ops import samplers
-        from gnxraytracer_tpu.scene import presets
+        from gnxraytracer.models.integrators import path
+        from gnxraytracer.ops import samplers
+        from gnxraytracer.scene import presets
 
         scene, cam = presets.cornell_instanced(48, 48, flatten=False, n_inst=3)
         # drop the instances: render plain cornell for contrast

@@ -5,9 +5,9 @@ diffuse-only scene where all estimators share the same expectation)."""
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.models.integrators import direct, path, whitted
-from gnxraytracer_tpu.ops import samplers
-from gnxraytracer_tpu.scene import presets
+from gnxraytracer.models.integrators import direct, path, whitted
+from gnxraytracer.ops import samplers
+from gnxraytracer.scene import presets
 
 
 def render_all(scene, cam, w, h, spp, max_depth, seed=0):
@@ -80,10 +80,10 @@ class TestMirrorCornell:
     def test_mirror_reflection_visible_in_whitted(self):
         # swap the back-wall-facing dragon material spot for a mirror floor:
         # build cornell with a mirror sphere in front
-        from gnxraytracer_tpu.scene.scene import SceneBuilder
-        from gnxraytracer_tpu.scene.presets import (
+        from gnxraytracer.scene.scene import SceneBuilder
+        from gnxraytracer.scene.presets import (
             add_area_lights, add_cornell, reference_materials)
-        from gnxraytracer_tpu.scene.camera import make_perspective_camera
+        from gnxraytracer.scene.camera import make_perspective_camera
 
         b = SceneBuilder()
         mats = reference_materials(b)
@@ -107,8 +107,8 @@ class TestWhittedFaithful:
 
     @staticmethod
     def _glass_scene(w=32, h=32):
-        from gnxraytracer_tpu.scene.camera import make_perspective_camera
-        from gnxraytracer_tpu.scene.scene import SceneBuilder
+        from gnxraytracer.scene.camera import make_perspective_camera
+        from gnxraytracer.scene.scene import SceneBuilder
 
         b = SceneBuilder()
         floor = b.add_matte((0.7, 0.7, 0.7))

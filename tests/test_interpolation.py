@@ -5,7 +5,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from gnxraytracer_tpu.ops import interpolation as interp
+from gnxraytracer.ops import interpolation as interp
 
 
 def _nodes_values():

@@ -4,7 +4,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from gnxraytracer_tpu.ops import intersect
+from gnxraytracer.ops import intersect
 
 
 def mt_oracle(o, d, p0, p1, p2):

@@ -8,7 +8,7 @@ defining property: the first sample of pixel (x, y) lands in pixel (x, y).
 
 import numpy as np
 
-from gnxraytracer_tpu.ops import lds, samplers
+from gnxraytracer.ops import lds, samplers
 
 
 def radical_inverse_oracle(base, a):

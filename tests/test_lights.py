@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import pytest
 import numpy as np
 
-from gnxraytracer_tpu.models import light_dist, lights
-from gnxraytracer_tpu.models.integrators import path
-from gnxraytracer_tpu.ops import samplers
-from gnxraytracer_tpu.scene.camera import make_perspective_camera
-from gnxraytracer_tpu.scene.scene import SceneBuilder
+from gnxraytracer.models import light_dist, lights
+from gnxraytracer.models.integrators import path
+from gnxraytracer.ops import samplers
+from gnxraytracer.scene.camera import make_perspective_camera
+from gnxraytracer.scene.scene import SceneBuilder
 
 
 def plane_scene(add_lights):
@@ -95,7 +95,7 @@ class TestSpatialStrategy:
     def test_spatial_grid_builds_and_renders(self):
         # skybox off: with it on, its tiny spatial pmf makes the estimator
         # heavy-tailed and neither mean nor median converges at test spp
-        from gnxraytracer_tpu.scene import presets
+        from gnxraytracer.scene import presets
 
         scene, cam = presets.cornell_box(width=16, height=16, skybox=False)
         cfg = path.make_config(scene, 16, 16, spp=32, max_depth=3,

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.models import bxdf, materials
-from gnxraytracer_tpu.models.integrators.path import RenderCfg
-from gnxraytracer_tpu.scene.scene import SceneBuilder
-from gnxraytracer_tpu.utils.math import abs_cos_theta
+from gnxraytracer.models import bxdf, materials
+from gnxraytracer.models.integrators.path import RenderCfg
+from gnxraytracer.scene.scene import SceneBuilder
+from gnxraytracer.utils.math import abs_cos_theta
 
 
 def build_mats(add_fn):

@@ -5,9 +5,9 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from gnxraytracer_tpu.models import microfacet as mf
-from gnxraytracer_tpu.ops.sampling import uniform_sample_hemisphere
-from gnxraytracer_tpu.utils.math import abs_cos_theta, normalize
+from gnxraytracer.models import microfacet as mf
+from gnxraytracer.ops.sampling import uniform_sample_hemisphere
+from gnxraytracer.utils.math import abs_cos_theta, normalize
 
 
 def _rand2(n, seed):

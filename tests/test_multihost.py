@@ -4,10 +4,10 @@
 import pytest
 import numpy as np
 
-from gnxraytracer_tpu.models.integrators import path
-from gnxraytracer_tpu.ops import samplers
-from gnxraytracer_tpu.parallel import multihost
-from gnxraytracer_tpu.scene import presets
+from gnxraytracer.models.integrators import path
+from gnxraytracer.ops import samplers
+from gnxraytracer.parallel import multihost
+from gnxraytracer.scene import presets
 
 
 class TestRanges:

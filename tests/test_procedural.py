@@ -5,7 +5,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from gnxraytracer_tpu.ops import procedural as proc
+from gnxraytracer.ops import procedural as proc
 
 _PERM = np.asarray(proc._NOISE_PERM)
 

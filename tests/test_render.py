@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.models.integrators import path
-from gnxraytracer_tpu.ops import samplers
-from gnxraytracer_tpu.scene import presets
+from gnxraytracer.models.integrators import path
+from gnxraytracer.ops import samplers
+from gnxraytracer.scene import presets
 
 
 @pytest.fixture(scope="module")

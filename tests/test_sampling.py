@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.ops import sampling
-from gnxraytracer_tpu.utils import math as vmath
+from gnxraytracer.ops import sampling
+from gnxraytracer.utils import math as vmath
 
 
 def rand2(n, seed=0):

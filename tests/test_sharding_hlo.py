@@ -11,9 +11,9 @@ emits:
   * the sharded TRAIN step must all-reduce exactly the gradient pytree
     (one psum family over the mesh), and nothing else.
 
-Together with the computed comm budget (tools/bench_sharding_r4.py ->
-SHARDING_r04.json) this replaces the meaningless oversubscribed-host
-efficiency table.
+Together with the computed comm budget (test_comm_budget_matches_param_tree)
+this replaces timing a weak-scaling table on oversubscribed virtual
+devices.
 """
 
 import re
@@ -23,10 +23,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.models.integrators import path as P
-from gnxraytracer_tpu.ops import samplers
-from gnxraytracer_tpu.parallel import sharding as sh
-from gnxraytracer_tpu.scene import presets
+from gnxraytracer.models.integrators import path as P
+from gnxraytracer.ops import samplers
+from gnxraytracer.parallel import sharding as sh
+from gnxraytracer.scene import presets
 
 COLLECTIVES = re.compile(
     r"\b(all-reduce|all-gather|reduce-scatter|collective-permute|all-to-all)\b")
@@ -53,7 +53,7 @@ def test_sharded_forward_has_no_collectives():
     cam_r = jax.device_put(cam, sh._replicated(mesh))
     smp_r = jax.device_put(smp, sh._replicated(mesh))
     hlo = _compiled_hlo(sh._run_sharded, scene_r, cam_r, smp_r, pixel, cfg,
-                        0, 1)
+                        mesh, 0, 1)
     hits = COLLECTIVES.findall(hlo)
     assert not hits, f"unexpected collectives in sharded forward: {hits[:8]}"
 
@@ -82,7 +82,7 @@ def test_sharded_train_step_all_reduces_gradients_only():
     smp_r = jax.device_put(smp, sh._replicated(mesh))
 
     # rebuild the same jitted step make_train_step uses so we can lower it
-    import gnxraytracer_tpu.parallel.sharding as shm
+    import gnxraytracer.parallel.sharding as shm
 
     step = None
     # reach the inner step through the closure

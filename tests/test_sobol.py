@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import pytest
 import numpy as np
 
-from gnxraytracer_tpu.ops import samplers, sobol
+from gnxraytracer.ops import samplers, sobol
 
 
 class TestMatrices:
@@ -66,8 +66,8 @@ class TestSobolSampler:
 
     @pytest.mark.slow
     def test_render_with_sobol(self):
-        from gnxraytracer_tpu.models.integrators import path
-        from gnxraytracer_tpu.scene import presets
+        from gnxraytracer.models.integrators import path
+        from gnxraytracer.scene import presets
 
         scene, cam = presets.cornell_box(width=16, height=16)
         cfg = path.make_config(scene, 16, 16, spp=16, max_depth=3, spp_chunk=16)

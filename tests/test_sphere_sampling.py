@@ -6,7 +6,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from gnxraytracer_tpu.models import sphere_sampling as sph
+from gnxraytracer.models import sphere_sampling as sph
 
 
 def _u2(n, seed):
@@ -71,7 +71,7 @@ class TestConeSample:
         ref = jnp.broadcast_to(jnp.asarray(ref_pt), (n, 3))
         c = jnp.broadcast_to(CENTER, (n, 3))
         r = jnp.broadcast_to(RADIUS, (n,))
-        from gnxraytracer_tpu.ops.sampling import uniform_sample_sphere
+        from gnxraytracer.ops.sampling import uniform_sample_sphere
 
         wi = uniform_sample_sphere(_u2(n, 3))
         pdf = np.asarray(sph.pdf_from_ref(c, r, ref, wi))
@@ -110,7 +110,7 @@ class TestConeSample:
         assert np.isfinite(np.asarray(s.pdf)).all()
         assert (np.asarray(s.pdf) > 0).all()
         # inside-pdf integrates to 1 over the full sphere of directions
-        from gnxraytracer_tpu.ops.sampling import uniform_sample_sphere
+        from gnxraytracer.ops.sampling import uniform_sample_sphere
 
         wi = uniform_sample_sphere(_u2(n, 6))
         pdf = np.asarray(sph.pdf_from_ref(c, r, ref, wi))

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.models.integrators import path
-from gnxraytracer_tpu.ops import samplers
-from gnxraytracer_tpu.ops.texture import (
+from gnxraytracer.models.integrators import path
+from gnxraytracer.ops import samplers
+from gnxraytracer.ops.texture import (
     bilinear_lookup, build_texture_atlas, trilinear_lookup,
 )
-from gnxraytracer_tpu.scene.camera import make_perspective_camera
-from gnxraytracer_tpu.scene.scene import SceneBuilder
+from gnxraytracer.scene.camera import make_perspective_camera
+from gnxraytracer.scene.scene import SceneBuilder
 
 
 def quad_scene(material_fn):

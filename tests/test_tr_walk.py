@@ -2,7 +2,7 @@
 
 The reference's VisibilityTester::Tr (/root/reference/core/Light.cpp:33-53)
 walks through null-material boundaries multiplying each segment's medium
-Tr.  models/media.transmittance_walk is the bounded TPU equivalent; these
+Tr.  models/media.transmittance_walk is the bounded wavefront equivalent; these
 tests build a scene where the single-medium shortcut is provably wrong and
 check the walk against a float64 analytic oracle.
 
@@ -16,10 +16,10 @@ x=1.5 (B->vacuum): true Tr = exp(-sA*(0.5-x0)) * exp(-sB*1.0).
 import jax.numpy as jnp
 import numpy as np
 
-from gnxraytracer_tpu.models import media as media_mod
-from gnxraytracer_tpu.models.integrators import volpath
-from gnxraytracer_tpu.scene.presets import _box_mesh
-from gnxraytracer_tpu.scene.scene import SceneBuilder
+from gnxraytracer.models import media as media_mod
+from gnxraytracer.models.integrators import volpath
+from gnxraytracer.scene.presets import _box_mesh
+from gnxraytracer.scene.scene import SceneBuilder
 
 SIG_A = np.array([0.9, 0.5, 0.2])
 SIG_B = np.array([0.1, 0.3, 0.6])
@@ -105,7 +105,7 @@ class TestTransmittanceWalk:
         produces a finite image that differs from the single-medium mode
         on the nested-shell scene (brighter, since B is thinner than A
         along most shadow paths)."""
-        from gnxraytracer_tpu.ops import samplers
+        from gnxraytracer.ops import samplers
 
         b = SceneBuilder()
         med_a = b.add_homogeneous_medium(SIG_A, SIG_A, g=0.0)
@@ -119,7 +119,7 @@ class TestTransmittanceWalk:
         b.add_mesh(fv, ff, material=m)
         b.add_point_light((4.0, 2.0, 0.0), (200.0, 200.0, 200.0))
         scene = b.build()
-        from gnxraytracer_tpu.scene.camera import make_perspective_camera
+        from gnxraytracer.scene.camera import make_perspective_camera
 
         cam = make_perspective_camera(24, 24, eye=(0, 0.3, 5.0),
                                       look=(0, -0.2, 0))

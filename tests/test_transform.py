@@ -4,7 +4,7 @@ core/Transform.cpp:1089-1260)."""
 import numpy as np
 import pytest
 
-from gnxraytracer_tpu.utils import transform as tf
+from gnxraytracer.utils import transform as tf
 
 import jax.numpy as jnp
 

@@ -1,116 +1,15 @@
-"""Host-build invariants for the round-5 wide-BVH records
-(ops/pallas_wbvh.collapse_bvhw / _quantize_pack), plus the fused env
-Le+pdf path (models/lights.envmap_le_pdf, sampling.sample_continuous_2d_idx).
-
-The kernel itself is covered end-to-end by interpret-mode equality tests
-in test_pallas.py; these pin the build-side contracts the kernel relies
-on: every leaf row reachable exactly once, per-octant orders are true
-permutations of the real slots, empty slots carry target 0 (the push
-guard) and quantize to zero-volume corner boxes.
-"""
+"""The fused env Le+pdf path (models/lights.envmap_le_pdf,
+sampling.sample_continuous_2d_idx) against the separate lookups it
+replaces."""
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
-
-from gnxraytracer_tpu.ops import bvh as bvh_mod
-from gnxraytracer_tpu.ops import pallas_wbvh as wb
-
-
-def _tree(nt, seed=0):
-    rs = np.random.RandomState(seed)
-    v = rs.randn(nt * 3, 3).astype(np.float32)
-    tris = np.arange(nt * 3).reshape(nt, 3).astype(np.int32)
-    return bvh_mod.build_bvh(jnp.asarray(v), jnp.asarray(tris))
-
-
-@pytest.mark.parametrize("width", [4, 8, 16])
-@pytest.mark.parametrize("nt", [3, 37, 700])
-def test_collapse_reaches_every_leaf_once(width, nt):
-    tree = _tree(nt)
-    off = np.asarray(tree.offset)
-    npr = np.asarray(tree.n_prims)
-    ax = np.asarray(tree.axis)
-    lo = np.asarray(tree.bounds_lo)
-    hi = np.asarray(tree.bounds_hi)
-    bounds, targ, perms = wb.collapse_bvhw(off, npr, ax, lo, hi, width)
-    nw = targ.shape[0]
-    n_leaf_rows = int((npr > 0).sum())
-
-    # walk the wide DAG from the root; collect leaf codes + child edges
-    seen_leaf = []
-    seen_node = set()
-    stack = [0]
-    while stack:
-        n = stack.pop()
-        assert n not in seen_node, "wide node visited twice (cycle/dag)"
-        seen_node.add(n)
-        for s in range(width):
-            t = int(targ[n, s])
-            empty = bounds[n, 0, s] > wb.BIG / 2
-            if empty:
-                assert t == 0, "empty slot must carry target 0"
-                continue
-            if t < 0:
-                seen_leaf.append(-t - 1)
-            else:
-                assert t != 0, "no real slot may target the root"
-                stack.append(t)
-    assert len(seen_node) == nw, "unreachable wide nodes packed"
-    assert sorted(seen_leaf) == list(range(n_leaf_rows)), (
-        "every aligned leaf row must appear exactly once")
-
-    # per-octant orders: a permutation of real slot indices, padded with
-    # an EMPTY slot index
-    for n in range(nw):
-        real = [s for s in range(width) if bounds[n, 0, s] < wb.BIG / 2]
-        for o in range(8):
-            head = list(perms[n, o, :len(real)])
-            assert sorted(head) == sorted(real)
-            for p in perms[n, o, len(real):]:
-                assert bounds[n, 0, int(p)] > wb.BIG / 2
-
-
-@pytest.mark.parametrize("width", [4, 16])
-def test_quantized_boxes_only_grow(width):
-    tree = _tree(300, seed=3)
-    off = np.asarray(tree.offset)
-    npr = np.asarray(tree.n_prims)
-    ax = np.asarray(tree.axis)
-    lo = np.asarray(tree.bounds_lo)
-    hi = np.asarray(tree.bounds_hi)
-    bounds, targ, perms = wb.collapse_bvhw(off, npr, ax, lo, hi, width)
-    nbw, ntw, owords, rw = wb._rec_words(width)
-    rec, frame = wb._quantize_pack(bounds, targ, perms, width,
-                                   bounds.shape[0])
-    f_lo, scale = frame[0, 0:3], frame[0, 3:6]
-    recu = rec.view(np.uint32)
-    for n in range(bounds.shape[0]):
-        for s in range(width):
-            if bounds[n, 0, s] > wb.BIG / 2:
-                continue
-            for k in range(3):
-                blo = (recu[n, k * (width // 4) + s // 4]
-                       >> (8 * (s % 4))) & 255
-                bhi = (recu[n, (3 + k) * (width // 4) + s // 4]
-                       >> (8 * (s % 4))) & 255
-                dlo = f_lo[k] + float(blo) * scale[k]
-                dhi = f_lo[k] + float(bhi) * scale[k]
-                assert dlo <= bounds[n, k, s] + 1e-6
-                assert dhi >= bounds[n, 3 + k, s] - 1e-6
-
-    # int16 target roundtrip
-    for n in range(bounds.shape[0]):
-        for s in range(width):
-            w16 = rec[n, nbw + s // 2]
-            t = (w16 << 16) >> 16 if s % 2 == 0 else w16 >> 16
-            assert int(t) == int(targ[n, s])
 
 
 def test_envmap_le_pdf_matches_separate_path():
-    from gnxraytracer_tpu.models import lights
-    from gnxraytracer_tpu.models.integrators import path
-    from gnxraytracer_tpu.scene import presets
+    from gnxraytracer.models import lights
+    from gnxraytracer.models.integrators import path
+    from gnxraytracer.scene import presets
 
     scene, _cam = presets.envmap_mesh(32, 32)
     cfg = path.make_config(scene, 32, 32, spp=2, max_depth=2)
@@ -133,7 +32,7 @@ def test_envmap_le_pdf_matches_separate_path():
 def test_sample_continuous_2d_idx_consistent():
     """The idx variant's texel + the packed func channel reproduce
     sample_continuous_2d's pdf exactly (the le_func contract)."""
-    from gnxraytracer_tpu.ops.sampling import (Distribution2D,
+    from gnxraytracer.ops.sampling import (Distribution2D,
                                                make_distribution2d,
                                                sample_continuous_2d,
                                                sample_continuous_2d_idx)

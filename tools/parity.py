@@ -107,7 +107,7 @@ def build_oracle():
 def _write_blob(n_seg=BLOB_SEG):
     path = BLOB_3D if n_seg == BLOB_SEG else f"/tmp/parity_blob_{n_seg}.3d"
     if not os.path.exists(path):
-        from gnxraytracer_tpu.scene.loaders import make_blob_mesh, save_3d
+        from gnxraytracer.scene.loaders import make_blob_mesh, save_3d
 
         v, t, _n, _uv = make_blob_mesh(n_seg)
         save_3d(path, v, t)
@@ -226,7 +226,7 @@ def compare_one(name, ours, spp_ours):
 
 def build_our_scene(meta):
     """Build our twin of an oracle scene from golden metadata."""
-    from gnxraytracer_tpu.scene import presets
+    from gnxraytracer.scene import presets
 
     w, h = meta["w"], meta["h"]
     scene_name = meta.get("scene", "cornell")
@@ -252,11 +252,11 @@ def render_ours(name, spp):
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
-    from gnxraytracer_tpu.models.integrators import direct as D
-    from gnxraytracer_tpu.models.integrators import path as P
-    from gnxraytracer_tpu.models.integrators import volpath as V
-    from gnxraytracer_tpu.models.integrators import whitted as Wt
-    from gnxraytracer_tpu.ops import samplers
+    from gnxraytracer.models.integrators import direct as D
+    from gnxraytracer.models.integrators import path as P
+    from gnxraytracer.models.integrators import volpath as V
+    from gnxraytracer.models.integrators import whitted as Wt
+    from gnxraytracer.ops import samplers
 
     z = np.load(os.path.join(GOLDEN, f"{name}.npz"))
     meta = json.loads(str(z["meta"]))

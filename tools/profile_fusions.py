@@ -1,43 +1,42 @@
-"""Aggregate the profiler trace by fusion source location / long name."""
+"""Group the device events of a profiler trace by XLA fusion / kernel and
+its source location (the trace tools/profile_chunk.py writes).
 
-import glob
-import gzip
+    python tools/profile_fusions.py chiprun_out/profile_mesh [-v]
+"""
+
 import json
+import os
 import sys
 from collections import defaultdict
 
-files = glob.glob("/tmp/jaxtrace/**/*.trace.json.gz", recursive=True)
-agg = defaultdict(float)
-cnt = defaultdict(int)
-sample = {}
-for f in files:
-    with gzip.open(f, "rt") as fh:
-        data = json.load(fh)
-    for ev in data.get("traceEvents", []):
-        if ev.get("ph") != "X":
-            continue
-        name = ev.get("name", "")
-        if not (name.startswith("fusion") or name.startswith("while")
-                or name.startswith("copy") or name.startswith("sort")
-                or "wide_" in name or "reduce" in name):
-            continue
-        dur = ev.get("dur", 0) / 1e3
-        args = ev.get("args", {})
-        key = args.get("tf_op", "") or args.get("long_name", "") or name
-        # source info
-        src = args.get("source_info", "")
-        k = (name.split(".")[0], key[:140], src[:80])
-        agg[k] += dur
-        cnt[k] += 1
-        if k not in sample:
-            sample[k] = {kk: str(vv)[:200] for kk, vv in args.items()}
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-rows = sorted(agg.items(), key=lambda kv: -kv[1])
-tot = sum(v for _, v in rows)
-print(f"total listed: {tot:.1f} ms (2 chunks)")
-for (nm, key, src), v in rows[:40]:
-    print(f"{v:9.2f} ms x{cnt[(nm,key,src)]:4d}  {nm:14s} {key}")
-    if src:
-        print(f"            src: {src}")
-if rows and "-v" in sys.argv:
-    print(json.dumps(sample[rows[0][0]], indent=1))
+from profile_chunk import load_trace  # noqa: E402
+
+
+def main():
+    events, names = load_trace(sys.argv[1])
+    dev_pids = {p for p, n in names.items() if "GPU" in n or "gpu" in n}
+    agg, cnt, sample = defaultdict(float), defaultdict(int), {}
+    for ev in events:
+        if ev.get("ph") != "X" or ev["pid"] not in dev_pids:
+            continue
+        args = ev.get("args", {})
+        key = (ev["name"].split(".")[0],
+               (args.get("tf_op", "") or args.get("long_name", ""))[:140],
+               args.get("source_info", "")[:80])
+        agg[key] += ev.get("dur", 0) / 1e3
+        cnt[key] += 1
+        sample.setdefault(key, {k: str(v)[:200] for k, v in args.items()})
+    rows = sorted(agg.items(), key=lambda kv: -kv[1])
+    print(f"total device time listed: {sum(v for _, v in rows):.1f} ms")
+    for (nm, op, src), v in rows[:40]:
+        print(f"{v:9.2f} ms x{cnt[(nm, op, src)]:4d}  {nm:24s} {op}")
+        if src:
+            print(f"            src: {src}")
+    if rows and "-v" in sys.argv:
+        print(json.dumps(sample[rows[0][0]], indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -180,7 +180,7 @@ static void addBox(std::vector<std::shared_ptr<Primitive>> &prims,
 // no loader (SURVEY.md §2.5) — this defines one so GridDensityMedium
 // (media/GridDensityMedium.cpp:31-87) can be parity-tested at all.
 // sigma values are scaled by 0.1 (file: 10/90 -> 1/9), matching
-// gnxraytracer_tpu/scene/presets.cornell_gridvol.
+// gnxraytracer/scene/presets.cornell_gridvol.
 static std::shared_ptr<Medium> loadGridMedium(const std::string &path,
                                               const Transform &m2w) {
     FILE *f = fopen(path.c_str(), "r");
@@ -274,7 +274,7 @@ int main(int argc, char **argv) {
         // (.2,.2,.8), k (.11,.11,.11), rough .15, remap=false) and
         // getPurplePlasticMaterial (ui/MaterialList.cpp:49-56: kd purple,
         // kr = 1-purple, rough .1, remap=true).  Mirrored in
-        // gnxraytracer_tpu/scene/presets.cornell_metal.
+        // gnxraytracer/scene/presets.cornell_metal.
         auto metal = std::make_shared<MetalMaterial>(
             stex(0.2f, 0.2f, 0.8f), stex(0.11f, 0.11f, 0.11f), ftex(0.15f),
             ftex(0.15f), ftex(0.15f), ftex(0.f), false);
@@ -287,7 +287,7 @@ int main(int argc, char **argv) {
 
     if (sceneName == "gmd") {
         // config 3: Glass / Mirror / Disney boxes (coordinates mirrored in
-        // gnxraytracer_tpu/scene/presets.cornell_gmd)
+        // gnxraytracer/scene/presets.cornell_gmd)
         auto glass = std::make_shared<GlassMaterial>(
             stex(1.f, 1.f, 1.f), stex(1.f, 1.f, 1.f), ftex(0.f), ftex(0.f),
             ftex(1.5f), ftex(0.f), true);
